@@ -31,8 +31,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-BENCH_DIR = os.environ.get("KSSD_BENCH_DIR", "/tmp/kssd_bench")
-REF_BIN = os.environ.get("REF_BIN", "/tmp/refbuild/rabbit_kssd")
+import bench  # noqa: E402  (repo-root module: corpus + reference build)
+
+BENCH_DIR, REF_BIN = bench.BENCH_DIR, bench.REF_BIN
 
 
 def log(*a):
@@ -45,7 +46,7 @@ def rows_of(path: str) -> list[str]:
 
 
 def sketch_sets(path: str):
-    from rabbitkssd_tpu.formats import read_sketches
+    from rabbitkssd.formats import read_sketches
 
     import numpy as np
 
@@ -61,7 +62,7 @@ def run_ref(args: list[str], cwd: str) -> float:
 
 
 def run_ours(args: list[str]) -> float:
-    from rabbitkssd_tpu.cli import main as cli_main
+    from rabbitkssd.cli import main as cli_main
 
     t0 = time.time()
     rc = cli_main(args)
@@ -174,8 +175,6 @@ def config3(root: str, files: list[str], shuf: str) -> dict:
 
 
 def main() -> int:
-    import bench  # repo-root benchmark module: corpus + shuffle helpers
-
     list_path = bench.ensure_corpus()
     shuf_path = bench.ensure_shuffle()
     if not os.path.exists(REF_BIN):
@@ -191,9 +190,6 @@ def main() -> int:
         shutil.copy(shuf_path, shuf_local)
     shuf = os.path.basename(shuf_local)
 
-    from rabbitkssd_tpu.ops import _config
-
-    _config.start_warm()
     print(json.dumps(config2(root, files, shuf)), flush=True)
     print(json.dumps(config3(root, files, shuf)), flush=True)
     return 0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Config 4 (BASELINE.md): mammal/metagenome scale — multi-GB genomes,
+"""Config 4 (BASELINE.json): mammal/metagenome scale — multi-GB genomes,
 L3K12 shuffle (half_k=12, half_subk=6, drlevel=3 -> use64; the
 reference REJECTS s=6 drlevel>=4: common.cpp:37-39 requires
 half_subk-drlevel>=3, so L4K10 from init_shuffle.sh is unusable for
@@ -11,7 +11,7 @@ reader: KSSD_STREAM_THRESHOLD default 1 GiB) + one multi-record file
 with N runs and lowercase bases (edge cases at scale).
 
 Usage: python scripts/config4_run.py [--genome-mb 1024]
-Prints one JSON line with the numbers for the BASELINE.md config-4 row.
+Prints one JSON line with the config-4 numbers.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-BENCH_DIR = os.environ.get("KSSD_BENCH_DIR", "/tmp/kssd_bench")
-REF_BIN = os.environ.get("REF_BIN", "/tmp/refbuild/rabbit_kssd")
+import bench  # noqa: E402  (repo-root module: corpus + reference build)
+
+BENCH_DIR, REF_BIN = bench.BENCH_DIR, bench.REF_BIN
 
 
 def log(*a):
@@ -95,16 +96,16 @@ def ensure_corpus(genome_mb: int) -> str:
 def ensure_shuffle() -> str:
     path = os.path.join(BENCH_DIR, "L3K12.shuf")
     if not os.path.exists(path):
-        from rabbitkssd_tpu.shuffle import generate_shuffle, write_shuffle_file
+        from rabbitkssd.shuffle import generate_shuffle, write_shuffle_file
 
         write_shuffle_file(generate_shuffle(12, 6, 3), path)
     return path
 
 
 def run_ours(list_path: str, shuf_path: str, warm: bool = True) -> dict:
-    from rabbitkssd_tpu.formats import save_sketches
-    from rabbitkssd_tpu.engine.sketcher import sketch_file_list
-    from rabbitkssd_tpu.shuffle import read_shuffle_file
+    from rabbitkssd.formats import save_sketches
+    from rabbitkssd.engine.sketcher import sketch_file_list
+    from rabbitkssd.shuffle import read_shuffle_file
 
     shuf = read_shuffle_file(shuf_path)
     t0 = time.time()
@@ -132,8 +133,6 @@ def run_reference(list_path: str, shuf_path: str) -> dict | None:
         return None
     root = os.path.dirname(list_path)
     out = os.path.join(root, "ref.sketch")
-    import bench  # repo-root module
-
     # -t 2: both 1 GB files stay on the kseq small-file path (the stub
     # RabbitFX build aborts on the big-file path) and run in parallel
     wall, rss_kb, r = bench.run_measured(
@@ -148,7 +147,7 @@ def run_reference(list_path: str, shuf_path: str) -> dict | None:
 
 
 def set_equal(ours_path: str, ref_path: str) -> bool:
-    from rabbitkssd_tpu.formats import read_sketches
+    from rabbitkssd.formats import read_sketches
 
     ours, ref = read_sketches(ours_path), read_sketches(ref_path)
     if ours.info.id != ref.info.id:

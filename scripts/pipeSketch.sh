@@ -14,11 +14,11 @@ rm -f tmpSketchDir/*
 while read -r line; do
   fastq-dump "$line"
   ls ${line}.fastq > ${line}.list
-  rabbit_kssd_tpu sketch -L shuf_file/L3K10.shuf -i ${line}.list -o tmpSketchDir/${line}.sketch -q
+  rabbitkssd sketch -L shuf_file/L3K10.shuf -i ${line}.list -o tmpSketchDir/${line}.sketch -q
   rm ${line}.fastq ${line}.list
 done < "$accessionList"
 
 ls tmpSketchDir/*.sketch > tmpSketch.list
-rabbit_kssd_tpu merge -i tmpSketch.list -o ${accessionList}.sketch
+rabbitkssd merge -i tmpSketch.list -o ${accessionList}.sketch
 rm tmpSketch.list
 rm -rf tmpSketchDir

@@ -22,7 +22,9 @@ import sys
 
 import numpy as np
 
-REF_BIN = os.environ.get("REF_BIN", "/tmp/refbuild/rabbit_kssd")
+REF_BIN = os.environ.get("REF_BIN", os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "build",
+    "refbuild", "rabbit_kssd"))
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 

@@ -16,7 +16,7 @@ import sys
 
 import numpy as np
 
-from rabbitkssd_tpu.parallel.multihost import global_mesh, init_multihost
+from rabbitkssd.parallel.multihost import global_mesh, init_multihost
 
 init_multihost()
 
@@ -37,7 +37,7 @@ for row in mesh.devices:
 # the production default (engine _counts / MeshSketcher) must get the
 # SAME host-local layout: make_mesh delegates to global_mesh under
 # jax.distributed instead of factorizing locality-blind
-from rabbitkssd_tpu.parallel.sharded import make_mesh  # noqa: E402
+from rabbitkssd.parallel.sharded import make_mesh  # noqa: E402
 
 auto = make_mesh()
 assert auto.devices.shape == mesh.devices.shape, auto.devices.shape
@@ -46,7 +46,7 @@ for row in auto.devices:
     assert len(procs) == 1, f"auto mesh vp row spans processes {procs}"
 
 # --- sharded distance counts vs numpy oracle -----------------------------
-from rabbitkssd_tpu.parallel.sharded import sharded_common_counts  # noqa: E402
+from rabbitkssd.parallel.sharded import sharded_common_counts  # noqa: E402
 
 rng = np.random.default_rng(7)
 hashes0 = [np.unique(rng.integers(0, 5000, size=n).astype(np.uint32))
@@ -70,9 +70,9 @@ np.testing.assert_array_equal(got_all, oracle_all)
 print("COUNTS-OK", flush=True)
 
 # --- sharded sketch window ------------------------------------------------
-from rabbitkssd_tpu.engine.sketcher import ShardedSketcher  # noqa: E402
-from rabbitkssd_tpu.params import KssdParams  # noqa: E402
-from rabbitkssd_tpu.shuffle import generate_shuffle  # noqa: E402
+from rabbitkssd.engine.sketcher import ShardedSketcher  # noqa: E402
+from rabbitkssd.params import KssdParams  # noqa: E402
+from rabbitkssd.shuffle import generate_shuffle  # noqa: E402
 
 shuf = generate_shuffle(8, 6, 3)
 params = KssdParams(half_k=8, half_subk=6, drlevel=3)

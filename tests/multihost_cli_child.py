@@ -1,6 +1,6 @@
 """Child for the 2-process CLI end-to-end test (CPU backend).
 
-Runs the REAL CLI surface (`rabbitkssd_tpu.cli.main`) under
+Runs the REAL CLI surface (`rabbitkssd.cli.main`) under
 jax.distributed: ``sketch``, ``alldist``, ``dist`` (incl. the top-N
 heap path), and a ``union``/``sub``/``merge``/``info`` chain on the
 corpus the parent prepared (argv[1] = genome list, argv[2] = .shuf
@@ -18,7 +18,7 @@ bitmap set algebra (subCommand.cpp:307-892).
 import os
 import sys
 
-from rabbitkssd_tpu.cli import main
+from rabbitkssd.cli import main
 
 list_path, shuf_path, outdir = sys.argv[1:4]
 list_path, shuf_path = os.path.abspath(list_path), os.path.abspath(shuf_path)

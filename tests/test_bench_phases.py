@@ -59,3 +59,32 @@ def test_garbage_lines_ignored():
     p = bench.parse_ref_phases("=====total: 64\nfinshed sketching\n"
                                "time of something unknown is: 5.0\n")
     assert p == {}
+
+
+def _load_bench(monkeypatch, env: dict):
+    for k in ("KSSD_BENCH_DIR", "REF_BIN"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    spec = importlib.util.spec_from_file_location("bench_fresh",
+                                                  _spec.origin)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bench_dirs_default_under_checkout(monkeypatch):
+    # corpora and the reference build stay inside each checkout, so two
+    # checkouts compared on one machine never reuse each other's
+    b = _load_bench(monkeypatch, {})
+    build = os.path.join(os.path.dirname(os.path.abspath(_spec.origin)),
+                         "build")
+    assert b.BENCH_DIR == os.path.join(build, "bench")
+    assert b.REF_BIN == os.path.join(build, "refbuild", "rabbit_kssd")
+
+
+def test_bench_dirs_honour_env(monkeypatch, tmp_path):
+    b = _load_bench(monkeypatch, {"KSSD_BENCH_DIR": str(tmp_path / "c"),
+                                  "REF_BIN": str(tmp_path / "r" / "bin")})
+    assert b.BENCH_DIR == str(tmp_path / "c")
+    assert b.REF_BIN == str(tmp_path / "r" / "bin")

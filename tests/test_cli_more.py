@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.cli import main as cli_main
+from rabbitkssd.cli import main as cli_main
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

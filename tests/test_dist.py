@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.engine.dist_engine import run_alldist, run_dist
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.ops.distance import common_counts
+from rabbitkssd.engine.dist_engine import run_alldist, run_dist
+from rabbitkssd.formats import read_sketches
+from rabbitkssd.ops.distance import common_counts
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -101,7 +101,7 @@ def test_host_join_native_and_fallback(rng, monkeypatch):
     """The native posting-list walk and the chunked numpy expansion
     must agree with brute force (the chunk boundary math splits columns
     mid-run)."""
-    import rabbitkssd_tpu.ops.distance as D
+    import rabbitkssd.ops.distance as D
 
     hashes0 = [np.unique(rng.integers(0, 3000, size=400).astype(np.uint32))
                for _ in range(7)]
@@ -117,7 +117,7 @@ def test_host_join_native_and_fallback(rng, monkeypatch):
     native = D._pair_counts_host(g0, c0, g1, c1, 7, 5)
     np.testing.assert_array_equal(native, oracle)
 
-    import rabbitkssd_tpu.native as N
+    import rabbitkssd.native as N
 
     monkeypatch.setattr(N, "pair_count_native", lambda *a, **k: False)
     # tiny chunk: force many passes with mid-column splits
@@ -126,10 +126,31 @@ def test_host_join_native_and_fallback(rng, monkeypatch):
     np.testing.assert_array_equal(fallback, oracle)
 
 
+def test_mem_budget_cpu_and_override(monkeypatch):
+    """The CPU client reports no memory limit: it gets the fixed host
+    budget; KSSD_DIST_MEM_BYTES overrides on any device."""
+    import rabbitkssd.ops.distance as D
+
+    monkeypatch.delenv("KSSD_DIST_MEM_BYTES", raising=False)
+    assert D.mem_budget() == D._CPU_MEM_BUDGET
+    monkeypatch.setenv("KSSD_DIST_MEM_BYTES", "12345")
+    assert D.mem_budget() == 12345
+
+
+@pytest.mark.gpu
+def test_mem_budget_gpu_limit(gpu_device, monkeypatch):
+    """On a GPU the budget is a quarter of the device's memory limit."""
+    import rabbitkssd.ops.distance as D
+
+    monkeypatch.delenv("KSSD_DIST_MEM_BYTES", raising=False)
+    limit = gpu_device.memory_stats()["bytes_limit"]
+    assert D.mem_budget() == limit // 4
+
+
 def test_write_rows_4gb_split(tmp_path, monkeypatch):
     """Outputs beyond the split threshold land in <out>.dir + <out>.index
     (reference dist.cpp:276-341)."""
-    import rabbitkssd_tpu.engine.dist_engine as de
+    import rabbitkssd.engine.dist_engine as de
 
     monkeypatch.setattr(de, "MAX_SINGLE_FILE", 64)
     out = str(tmp_path / "big.dist")
@@ -151,7 +172,7 @@ def test_write_rows_multipart(tmp_path, monkeypatch):
     """With genome markers, oversized outputs roll to a NEW part at a
     genome boundary so no part exceeds the threshold, and the .index
     maps each genome to the part holding its rows."""
-    import rabbitkssd_tpu.engine.dist_engine as de
+    import rabbitkssd.engine.dist_engine as de
 
     row = "gA\tgB\t1|2|3\t0.100000\t0.200000\n"   # 28 bytes
     monkeypatch.setattr(de, "MAX_SINGLE_FILE", 4 * len(row) + 1)
@@ -180,7 +201,7 @@ def test_write_rows_multipart(tmp_path, monkeypatch):
 def test_write_rows_single_pass_merge(tmp_path):
     """Small outputs are written once and renamed (no spool-then-copy):
     the .dir is gone and the file is header + rows."""
-    import rabbitkssd_tpu.engine.dist_engine as de
+    import rabbitkssd.engine.dist_engine as de
 
     out = str(tmp_path / "small.dist")
     rows = ["gA\tgB\t1|2|3\t0.100000\t0.200000\n"]
@@ -226,7 +247,7 @@ def test_dist_query_blocked(tmp_path, monkeypatch):
     without top-N."""
     import dataclasses
 
-    from rabbitkssd_tpu.engine.dist_engine import run_dist
+    from rabbitkssd.engine.dist_engine import run_dist
 
     ref = read_sketches(os.path.join(GOLDEN, "fa_k8s4l1.sketch"))
     reps = []
@@ -254,11 +275,11 @@ def test_dist_query_blocked(tmp_path, monkeypatch):
 def test_topn_matches_scalar_reference(rng):
     """The candidate-jump top-N heap replays the reference's scalar
     push/pop sequence exactly (incl. ties and the fill phase)."""
-    from rabbitkssd_tpu.engine.dist_engine import (
+    from rabbitkssd.engine.dist_engine import (
         _bulk_dist, _jaccard_mash, _topn_heap,
     )
-    from rabbitkssd_tpu.utils.stdheap import StdPriorityQueue
-    from rabbitkssd_tpu.engine.dist_engine import _Neighbor
+    from rabbitkssd.utils.stdheap import StdPriorityQueue
+    from rabbitkssd.engine.dist_engine import _Neighbor
 
     nr = 500
     kmer = 16
@@ -350,7 +371,7 @@ def test_dist_from_index_matches_golden(tmp_path):
     """ref-vs-query (incl. top-N) counting from a persisted ref index."""
     import shutil
 
-    from rabbitkssd_tpu.formats import write_index
+    from rabbitkssd.formats import write_index
 
     ref_sketch = str(tmp_path / "ref.sketch")
     shutil.copy(os.path.join(GOLDEN, "fa_k8s4l1.sketch"), ref_sketch)
@@ -373,7 +394,7 @@ def test_alldist_from_index_blocked(tmp_path, monkeypatch):
     import dataclasses
     import shutil
 
-    from rabbitkssd_tpu.formats import save_sketches, write_index
+    from rabbitkssd.formats import save_sketches, write_index
 
     monkeypatch.setenv("KSSD_DIST_BLOCK", "128")
     sk = read_sketches(os.path.join(GOLDEN, "fa_k8s4l1.sketch"))

@@ -12,11 +12,10 @@ def test_alldist_on_cpu_mesh_matches_golden(tmp_path):
     run_in_cpu_mesh(
         f"""
 import sys
-sys.path.insert(0, '/root/repo')
 import jax
 assert len(jax.devices()) == 8
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.engine.dist_engine import run_alldist
+from rabbitkssd.formats import read_sketches
+from rabbitkssd.engine.dist_engine import run_alldist
 sk = read_sketches({os.path.join(GOLDEN, 'fa_k8s4l1.sketch')!r})
 run_alldist(sk, {out!r}, max_dist=1.0, containment=False)
 print('MESH ALLDIST DONE')

@@ -12,11 +12,11 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.engine import dist_engine
-from rabbitkssd_tpu.engine.dist_engine import (_containment_aaf, _d6,
+from rabbitkssd.engine import dist_engine
+from rabbitkssd.engine.dist_engine import (_containment_aaf, _d6,
                                                _jaccard_mash, dist_rows)
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.native import NameBlob, format_rows, load_native
+from rabbitkssd.formats import read_sketches
+from rabbitkssd.native import NameBlob, format_rows, load_native
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -112,7 +112,7 @@ def test_dist_rows_chunked_matches_scalar(native, monkeypatch, max_dist):
     # scalar fallback: pretend the toolchain is gone (dist_rows gates
     # the native path on load_native() ONCE, before any group — a
     # mid-loop fallback would duplicate already-yielded rows)
-    import rabbitkssd_tpu.native as native_mod
+    import rabbitkssd.native as native_mod
 
     monkeypatch.setattr(native_mod, "load_native", lambda: None)
     monkeypatch.setattr(native_mod, "format_rows",
@@ -135,7 +135,7 @@ def test_alldist_rows_chunked_matches_scalar(native, monkeypatch):
 
     monkeypatch.setattr(dist_engine, "_ROWGROUP_CELLS", 16)
     got = _collect(dist_engine.alldist_rows(big, common, k, 0.8, False))
-    import rabbitkssd_tpu.native as native_mod
+    import rabbitkssd.native as native_mod
 
     monkeypatch.setattr(native_mod, "format_rows",
                         lambda *a, **kw: None)

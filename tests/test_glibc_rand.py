@@ -6,7 +6,7 @@ reference shuffle generator uses (reference shuffle.cpp:87-104).
 
 import numpy as np
 
-from rabbitkssd_tpu.glibc_rand import GlibcRand, fisher_yates, shuffle_n
+from rabbitkssd.glibc_rand import GlibcRand, fisher_yates, shuffle_n
 
 GLIBC_EXPECTED = {
     1: [1804289383, 846930886, 1681692777, 1714636915, 1957747793],

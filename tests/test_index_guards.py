@@ -16,8 +16,8 @@ import struct
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.engine.dist_engine import _load_csr, run_alldist
-from rabbitkssd_tpu.formats import (Sketch, SketchInfo, SketchSet,
+from rabbitkssd.engine.dist_engine import _load_csr, run_alldist
+from rabbitkssd.formats import (Sketch, SketchInfo, SketchSet,
                                     read_index_csr, save_sketches,
                                     write_index)
 

@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from rabbitkssd_tpu.formats import read_index, read_sketches, write_index
+from rabbitkssd.formats import read_index, read_sketches, write_index
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -57,7 +57,7 @@ def test_index64_unsorted_vocab_normalized(tmp_path):
 
     import numpy as np
 
-    from rabbitkssd_tpu.formats import read_index_csr
+    from rabbitkssd.formats import read_index_csr
 
     base = str(tmp_path / "x.sketch")
     vocab = np.array([900, 5, 77, 3], np.uint64)  # decidedly unsorted

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from rabbitkssd_tpu.ops.distance import common_counts
-from rabbitkssd_tpu.ops.intersect import common_counts_sorted
+from rabbitkssd.ops.distance import common_counts
+from rabbitkssd.ops.intersect import common_counts_sorted
 
 
 def test_sorted_intersect_matches_matmul(rng):
@@ -34,7 +34,7 @@ def test_sorted_intersect_refquery_64bit(rng):
 
 def test_pair_counts_host_matches_device(rng, monkeypatch):
     """The small-join host path and the MXU matmul path agree exactly."""
-    from rabbitkssd_tpu.ops.distance import common_counts
+    from rabbitkssd.ops.distance import common_counts
 
     hashes0 = [np.unique(rng.integers(0, 4000, size=rng.integers(5, 300))
                          .astype(np.uint32)) for _ in range(17)]

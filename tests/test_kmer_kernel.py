@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.oracle import oracle_hashes_pyloop, sketch_records_oracle
-from rabbitkssd_tpu.ops.kmer import (
+from rabbitkssd.oracle import oracle_hashes_pyloop, sketch_records_oracle
+from rabbitkssd.ops.kmer import (
     combine_hash_words,
     encode_concat,
     make_hash_kernel,
     pack_blocks,
 )
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.shuffle import generate_shuffle, read_shuffle_file
+from rabbitkssd.params import KssdParams
+from rabbitkssd.shuffle import generate_shuffle, read_shuffle_file
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

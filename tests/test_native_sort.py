@@ -1,14 +1,14 @@
 """Native radix-sort / partition kernels vs numpy oracles.
 
 These back the inverted-index build (`_CsrIndex.from_hashes` /
-`strip_runs`, engine/dist_engine.py) — the TPU build's sparse equivalent
+`strip_runs`, engine/dist_engine.py) — this build's sparse equivalent
 of the reference's transSketches scatter
 (/root/reference/src/sketch.cpp:971-1016)."""
 
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.native import (load_native, partition_pairs,
+from rabbitkssd.native import (load_native, partition_pairs,
                                    radix_sort_kv64, radix_sort_u64)
 
 
@@ -71,7 +71,7 @@ def test_partition_pairs_matches_argsort(n, block, ng):
 
 def test_sort_postings_variants_agree():
     """from_hashes' native packed / kv paths == the argsort fallback."""
-    from rabbitkssd_tpu.engine.dist_engine import _sort_postings
+    from rabbitkssd.engine.dist_engine import _sort_postings
 
     rng = np.random.default_rng(11)
     sizes = rng.integers(1, 40, size=200)

@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.oracle import (
+from rabbitkssd.formats import read_sketches
+from rabbitkssd.oracle import (
     oracle_hashes_numpy,
     oracle_hashes_pyloop,
     sketch_records_oracle,
 )
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.seqio import read_list, read_records
-from rabbitkssd_tpu.shuffle import read_shuffle_file
+from rabbitkssd.params import KssdParams
+from rabbitkssd.seqio import read_list, read_records
+from rabbitkssd.shuffle import read_shuffle_file
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

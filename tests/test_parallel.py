@@ -5,7 +5,7 @@ from conftest import run_in_cpu_mesh
 
 def test_dryrun_multichip_8():
     out = run_in_cpu_mesh(
-        "import sys; sys.path.insert(0, '/root/repo');"
+        "import sys;"
         "import __graft_entry__ as g; g.dryrun_multichip(8); print('DRYRUN OK')"
     )
     assert "DRYRUN OK" in out
@@ -15,10 +15,9 @@ def test_sharded_common_matches_single_chip():
     out = run_in_cpu_mesh(
         """
 import sys
-sys.path.insert(0, '/root/repo')
 import numpy as np
-from rabbitkssd_tpu.parallel.sharded import make_mesh, sharded_common_counts
-from rabbitkssd_tpu.ops.distance import common_counts
+from rabbitkssd.parallel.sharded import make_mesh, sharded_common_counts
+from rabbitkssd.ops.distance import common_counts
 
 rng = np.random.default_rng(5)
 hashes = [np.unique(rng.integers(0, 20000, rng.integers(10, 900)).astype(np.uint64))
@@ -44,12 +43,11 @@ def test_sharded_ring_device_path():
     out = run_in_cpu_mesh(
         """
 import os, sys
-sys.path.insert(0, '/root/repo')
 os.environ['KSSD_HOST_JOIN_MAX'] = '0'      # no host fast path
 os.environ['KSSD_DIST_MEM_BYTES'] = '200000'  # force >1 vocab chunk
 import numpy as np
-from rabbitkssd_tpu.parallel.sharded import make_mesh, sharded_common_counts
-from rabbitkssd_tpu.ops.distance import common_counts
+from rabbitkssd.parallel.sharded import make_mesh, sharded_common_counts
+from rabbitkssd.ops.distance import common_counts
 
 rng = np.random.default_rng(17)
 hashes = [np.unique(rng.integers(0, 30000, rng.integers(50, 1200)).astype(np.uint64))
@@ -67,18 +65,43 @@ print('RING MATCH OK')
     assert "RING MATCH OK" in out
 
 
+def test_sharded_ring_dp4():
+    """The ring at dp = 4, vp = 1: each of the four rotations lands in
+    its own column block, so a ring turning the wrong way miscounts (at
+    dp = 2 the two directions coincide)."""
+    out = run_in_cpu_mesh(
+        """
+import os
+os.environ['KSSD_HOST_JOIN_MAX'] = '0'      # no host fast path
+import numpy as np, jax
+from jax.sharding import Mesh
+from rabbitkssd.parallel.sharded import sharded_common_counts
+
+rng = np.random.default_rng(23)
+hashes = [np.unique(rng.integers(0, 5000, rng.integers(50, 600)).astype(np.uint64))
+          for _ in range(10)]
+mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(4, 1), ('dp', 'vp'))
+oracle = np.array([[len(np.intersect1d(x, y)) for y in hashes] for x in hashes], np.int32)
+np.testing.assert_array_equal(sharded_common_counts(hashes, None, mesh), oracle)
+np.testing.assert_array_equal(sharded_common_counts(hashes[:6], hashes, mesh), oracle[:6])
+print('RING DP4 OK')
+""",
+        n_devices=4,
+    )
+    assert "RING DP4 OK" in out
+
+
 def test_sharded_sketch_matches_oracle():
     out = run_in_cpu_mesh(
         """
 import sys
-sys.path.insert(0, '/root/repo')
 import numpy as np, jax
 import jax.numpy as jnp
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.shuffle import generate_shuffle
-from rabbitkssd_tpu.parallel.sharded import make_mesh, make_sharded_sketch_step
-from rabbitkssd_tpu.oracle import sketch_records_oracle
-from rabbitkssd_tpu.ops.kmer import encode_concat
+from rabbitkssd.params import KssdParams
+from rabbitkssd.shuffle import generate_shuffle
+from rabbitkssd.parallel.sharded import make_mesh, make_sharded_sketch_step
+from rabbitkssd.oracle import sketch_records_oracle
+from rabbitkssd.ops.kmer import encode_concat
 
 params = KssdParams(half_k=8, half_subk=4, drlevel=1)
 shuf = generate_shuffle(8, 4, 1)
@@ -109,8 +132,8 @@ print('SHARDED SKETCH OK')
 
 def test_global_mesh_single_process():
     out = run_in_cpu_mesh(
-        "import sys; sys.path.insert(0, '/root/repo');"
-        "from rabbitkssd_tpu.parallel.multihost import init_multihost, global_mesh;"
+        "import sys;"
+        "from rabbitkssd.parallel.multihost import init_multihost, global_mesh;"
         "init_multihost();"
         "m = global_mesh();"
         "print('MESH', m.devices.shape, m.axis_names)"

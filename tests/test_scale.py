@@ -41,7 +41,7 @@ def _make_sketches(rng):
 
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
-    from rabbitkssd_tpu.formats import (Sketch, SketchInfo, SketchSet,
+    from rabbitkssd.formats import (Sketch, SketchInfo, SketchSet,
                                         save_sketches)
 
     rng = np.random.default_rng(7)
@@ -67,8 +67,8 @@ import resource, sys
 sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})
 import jax
 assert len(jax.devices()) == 8
-from rabbitkssd_tpu.formats import read_sketches
-from rabbitkssd_tpu.engine.dist_engine import run_alldist
+from rabbitkssd.formats import read_sketches
+from rabbitkssd.engine.dist_engine import run_alldist
 sk = read_sketches({sketch_path!r})
 assert len(sk.sketches) == {N_GENOMES}
 run_alldist(sk, {out!r}, max_dist={MAX_DIST}, containment=False)
@@ -128,7 +128,7 @@ assert peak_gb < 8.0, f"unbounded memory: {{peak_gb:.1f}} GB"
 def test_100k_tile_counts_match_oracle(corpus):
     """Sampled cross-tiles of the blocked counting equal the numpy
     set-intersection oracle (VERDICT round-1 'done' criterion)."""
-    from rabbitkssd_tpu.ops.distance import common_counts
+    from rabbitkssd.ops.distance import common_counts
 
     _, hashes = corpus
     rng = np.random.default_rng(3)

@@ -6,8 +6,8 @@ import shutil
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.cli import main as cli_main
-from rabbitkssd_tpu.formats import read_kssd_dir, read_sketches
+from rabbitkssd.cli import main as cli_main
+from rabbitkssd.formats import read_kssd_dir, read_sketches
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -7,14 +7,13 @@ def test_sharded_sketcher_matches_oracle():
     out = run_in_cpu_mesh(
         """
 import sys
-sys.path.insert(0, '/root/repo')
 import numpy as np, jax
 assert len(jax.devices()) == 8
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.shuffle import generate_shuffle
-from rabbitkssd_tpu.engine.sketcher import ShardedSketcher, DeviceSketcher
-from rabbitkssd_tpu.ops.kmer import encode_concat
-from rabbitkssd_tpu.oracle import sketch_records_oracle
+from rabbitkssd.params import KssdParams
+from rabbitkssd.shuffle import generate_shuffle
+from rabbitkssd.engine.sketcher import ShardedSketcher, DeviceSketcher
+from rabbitkssd.ops.kmer import encode_concat
+from rabbitkssd.oracle import sketch_records_oracle
 
 rng = np.random.default_rng(9)
 params = KssdParams(8, 4, 1)
@@ -58,13 +57,12 @@ def test_sketch_file_list_auto_mesh(tmp_path):
     out = run_in_cpu_mesh(
         f"""
 import sys, os
-sys.path.insert(0, '/root/repo')
 os.chdir({golden!r})
 import numpy as np, jax
 assert len(jax.devices()) == 8
-from rabbitkssd_tpu.engine.sketcher import sketch_file_list
-from rabbitkssd_tpu.shuffle import read_shuffle_file
-from rabbitkssd_tpu.formats import read_sketches
+from rabbitkssd.engine.sketcher import sketch_file_list
+from rabbitkssd.shuffle import read_shuffle_file
+from rabbitkssd.formats import read_sketches
 ours = sketch_file_list('fa.list', read_shuffle_file('k8s4l1.shuf'))
 ref = {{s.name: np.sort(s.hashes) for s in read_sketches('fa_k8s4l1.sketch').sketches}}
 assert len(ours.sketches) == len(ref)

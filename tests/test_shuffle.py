@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.shuffle import (
+from rabbitkssd.shuffle import (
     generate_shuffle,
     read_shuffle_file,
     write_shuffle_file,

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.engine.sketcher import DeviceSketcher
-from rabbitkssd_tpu.oracle import sketch_records_oracle
-from rabbitkssd_tpu.params import KssdParams
-from rabbitkssd_tpu.shuffle import generate_shuffle
+from rabbitkssd.engine.sketcher import DeviceSketcher
+from rabbitkssd.oracle import sketch_records_oracle
+from rabbitkssd.params import KssdParams
+from rabbitkssd.shuffle import generate_shuffle
 
 
 @pytest.fixture(scope="module")
@@ -26,7 +26,7 @@ def test_sparse_compaction_matches_oracle(rng, l3k10):
     params, shuf = l3k10
     sk = DeviceSketcher(params, shuf.shuffled_dim, n_blocks=4, block=1 << 15)
     seqs = [_seq(rng, n) for n in (500, 200000, 70000)]
-    from rabbitkssd_tpu.ops.kmer import encode_concat
+    from rabbitkssd.ops.kmer import encode_concat
 
     codes = [encode_concat([(s, None)]) for s in seqs]
     got, n = sk.sketch_codes(iter(codes))
@@ -39,7 +39,7 @@ def test_sparse_compaction_matches_oracle(rng, l3k10):
 def test_sparse_group_overflow_fallback(rng, l3k10):
     """Force n_sel > g_cap: the sticky overflow must trigger the exact
     dense re-run."""
-    from rabbitkssd_tpu.engine.sketcher import make_stream_step
+    from rabbitkssd.engine.sketcher import make_stream_step
 
     params, shuf = l3k10
     sk = DeviceSketcher(params, shuf.shuffled_dim, n_blocks=2, block=1 << 14)

@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-from rabbitkssd_tpu.formats import Sketch, SketchInfo, SketchSet
+from rabbitkssd.formats import Sketch, SketchInfo, SketchSet
 
 
 def _sketchset(rng, n_genomes, pool, cluster=4):
@@ -38,7 +38,7 @@ def _sketchset(rng, n_genomes, pool, cluster=4):
 @pytest.mark.parametrize("max_dist", [0.05, 0.5])
 def test_sparse_equals_dense_blocked_alldist(tmp_path, monkeypatch,
                                              max_dist):
-    from rabbitkssd_tpu.engine.dist_engine import run_alldist
+    from rabbitkssd.engine.dist_engine import run_alldist
 
     rng = np.random.default_rng(11)
     sk = _sketchset(rng, 600, 220)  # small pool -> real jaccard overlap
@@ -56,7 +56,7 @@ def test_sparse_equals_dense_blocked_alldist(tmp_path, monkeypatch,
 def test_sparse_auto_dispatch_points(monkeypatch):
     """The cost model: sparse only for clearly sparse strips, never for
     include-zero emission."""
-    from rabbitkssd_tpu.engine.dist_engine import _use_sparse_strip
+    from rabbitkssd.engine.dist_engine import _use_sparse_strip
 
     # layout_pack = (g0, (..., total_join)); only layout[-1] is read
     def lp(total):
@@ -76,8 +76,8 @@ def test_sparse_auto_dispatch_points(monkeypatch):
 def test_collect_triples_matches_dense_walk():
     """collect_triples' (row, col, count) triples == the dense strip's
     in-triangle nonzeros, including the col_lo/diag trim semantics."""
-    from rabbitkssd_tpu.engine.dist_engine import _CsrIndex
-    from rabbitkssd_tpu.native import load_native
+    from rabbitkssd.engine.dist_engine import _CsrIndex
+    from rabbitkssd.native import load_native
 
     if load_native() is None:
         pytest.skip("native toolchain unavailable")
